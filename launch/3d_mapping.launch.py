@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""ROS2 launch orchestration for the TPU mapping stack.
+"""ROS2 launch orchestration for the JAX mapping stack.
 
 Functional equivalent of the reference's launch composition
 (/root/reference/launch/3d_mapping.launch.py:20-203), built around this
@@ -10,7 +10,7 @@ package instead of an ament package:
     every YAML value stays overridable from the command line;
   * Fast-LIO's own mapping.launch.py included with its RViz disabled
     (reference launch:121-131), gated by ``launch_fast_lio``;
-  * the TPU mapper node — a pip-installed module, not an ament executable —
+  * the JAX mapper node — a pip-installed module, not an ament executable —
     run as ``python3 -m sonar_3d_reconstruction_tpu.node`` with
     ``--ros-args --params-file <yaml> -p ...`` layering (same 5-level
     priority: CLI > YAML > launch > node defaults > library defaults);
@@ -120,7 +120,7 @@ def generate_launch_description():
             condition=IfCondition(LaunchConfiguration("launch_fast_lio")),
         ))
 
-    # The TPU mapper node: module entry point with full 5-level parameter
+    # The JAX mapper node: module entry point with full 5-level parameter
     # layering (CLI -p > YAML > these launch params > node defaults >
     # library defaults)
     ld.add_action(ExecuteProcess(

@@ -1,12 +1,12 @@
-"""TPU-native probabilistic 3D sonar reconstruction framework.
+"""Accelerator-native probabilistic 3D sonar reconstruction framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
+A from-scratch JAX/XLA rebuild of the capabilities of the reference
 ``sonar_3d_reconstruction`` ROS2 package (multibeam-sonar seabed mapping with
 log-odds Bayesian occupancy, reference scripts/3d_mapper.py): polar sonar pings
 are backprojected through a 20-degree vertical-aperture fan into world space and
 scatter-accumulated into a (dense or hashed-sparse) voxel occupancy map — as one
 fused, fixed-shape XLA program per ping, scanned over ping sequences, and
-shardable over a TPU mesh.
+shardable over a device mesh.
 
 Layering (bottom to top):
   geometry   — batched SE(3) math (RPY/quaternion -> 4x4, pose chains)

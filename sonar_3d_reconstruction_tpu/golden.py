@@ -2,7 +2,7 @@
 
 This is a clean-room reimplementation of the semantics of the reference
 ``scripts/3d_mapper.py`` (SimpleOctree + SonarTo3DMapper), used ONLY as the
-test oracle the TPU kernels are validated against (1e-5 occupancy-probability
+test oracle the device programs are validated against (1e-5 occupancy-probability
 parity bar).  It is deliberately simple and slow; every behavioral subtlety is
 cited to the reference file:line it reproduces.
 

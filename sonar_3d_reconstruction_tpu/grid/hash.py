@@ -1,13 +1,11 @@
 """Hashed sparse voxel grid — bucketized, packed-key, sort-dedup update path.
 
-The TPU-native replacement for the reference's dict-based "SimpleOctree"
+The accelerator-native replacement for the reference's dict-based "SimpleOctree"
 (scripts/3d_mapper.py:19-194): a device-resident open hash table over packed
 voxel codes, updated per frame from sort-deduplicated unique records
 (ops/dedup.py) so that every per-key table operation runs on U ~ 10^4-10^5
-unique voxels instead of N ~ 10^6 raw candidate emissions.  On this TPU
-runtime, indexed ops cost ~8-10 ns/index while sorts/scans are 10-100x
-cheaper per element — the dedup-first design is what makes the map update
-~25x faster than scattering raw candidates.
+unique voxels instead of N ~ 10^6 raw candidate emissions: indexed ops are
+paid per index, while sorts, scans and elementwise ops stream.
 
 Table layout: capacity C slots = C/128 buckets of 128 slots; keys stored
 INTERLEAVED as one (C/128, 256) uint32 array — row r holds bucket r's 128 hi
@@ -15,18 +13,14 @@ words then its 128 lo words (ops/packing.py packing).  Buckets fill
 left-to-right and entries are never removed, so a bucket's occupancy is a
 prefix — "first empty slot" is just its fill count.
 
-The 128-slot bucket is a TPU LAYOUT decision: TPU tiles rank-2 arrays as
-(8, 128) sublane x lane tiles, so any minor dimension < 128 is padded to
-128 in memory — an (C/8, 16) 8-slot layout occupies 8x its logical bytes
-and every copy/select/gather of the table pays that (measured: ~1.9 ms
-copies and a 6 ms row gather per window).  With 256 = 2*128 lanes the rows
-are exactly tile-aligned: zero padding, the flat view used by the insert
-scatter is a free bitcast, and per-key compare work (2*256 lanes) is noise
-on the vector units.
+The 128-slot bucket is a LAYOUT decision: with 256 = 2*128 u32 words per
+row, a bucket is one contiguous 1 KiB row, the flat view used by the
+insert scatter is a free bitcast, and per-key compare work (2*256 lanes)
+is noise next to the gather.
 
   * LOOKUP is ONE 256-wide row gather + elementwise compares — no probe
-    loop at all.  Row-gather cost is per ROW (~10 ns), so the wide bucket
-    costs the same number of indexed ops as a narrow one.
+    loop at all.  The wide bucket costs the same number of indexed ops as
+    a narrow one.
   * INSERT is collision-free by construction: new unique keys are sorted by
     bucket, ranked within equal buckets (running-max scan), and written at
     slot = bucket*128 + fill + rank in one scatter covering both key words.
@@ -67,9 +61,8 @@ from sonar_3d_reconstruction_tpu.ops.packing import (
     unpack_keys,
 )
 
-# Slots per bucket (one row gather resolves a whole bucket).  128 so the
-# interleaved (C/128, 256) key rows are exactly TPU tile-aligned (see the
-# module docstring); per-row gather cost is width-independent.
+# Slots per bucket (one row gather resolves a whole bucket; see the module
+# docstring for the layout).
 BUCKET_SLOTS = 128
 
 # Legacy unpacked-view marker: rows of the ``keys`` property for empty slots.
@@ -332,8 +325,8 @@ def default_batch_budget(window: int, unique_budget: int) -> int:
     the 64-ping bench survey, the worst 8-ping window's distinct voxels
     exceed 2x the per-frame budget (the yaw sweep keeps exposing new cells)
     but every window fits in 3x.  Hosts double it on ``batch_overflow`` —
-    at minutes per recompile through the remote TPU toolchain that growth
-    path is expensive, so the default carries real headroom."""
+    each growth recompiles the apply program, so the default carries real
+    headroom."""
     return min(window * unique_budget, 3 * unique_budget)
 
 
@@ -350,7 +343,7 @@ def effective_unique_budget(tables, cfg: MapperConfig) -> int:
     when none was given explicitly — the single implementation every
     grow-from-effective-value path doubles from (stream.py, pipeline.py,
     models/mapper.py; growing from the global DEFAULT over-allocates by up
-    to 32x on small geometries, ADVICE r1)."""
+    to 32x on small geometries)."""
     return default_unique_budget(
         tables.candidates_per_ping(cfg.occupied_window)
     )
@@ -523,8 +516,8 @@ def apply_records_batched(
     # prefix, so the compaction sort also runs at Lb lanes.  The lane
     # position payload records where each unique's segment STARTS — that is
     # what lets the chain seed be a ub-scatter and the result pickup a
-    # ub-gather below, instead of Lb-indexed ops (measured ~10 ns/index on
-    # v5e: the swap removes 2*(Lb-ub) indexed lanes per window).
+    # ub-gather below, instead of Lb-indexed ops (the swap removes
+    # 2*(Lb-ub) indexed lanes per window).
     not_rec = (~rec_start[:Lb]).astype(jnp.uint32)
     lane_pos = jnp.arange(Lb, dtype=jnp.int32)
     _, c_hi, c_lo, c_pos = jax.lax.sort(
@@ -846,7 +839,7 @@ def touched_voxels_hash(
 # Point queries (reference SimpleOctree.get_log_odds / get_probability,
 # 3d_mapper.py:117-126, and the world_to_key / key_to_world pair :53-81) —
 # batched: the reference answers one coordinate per call from a Python
-# dict; the TPU-shaped equivalent resolves N query points in one bucket
+# dict; the batched equivalent resolves N query points in one bucket
 # row gather.
 # ---------------------------------------------------------------------------
 

@@ -282,7 +282,7 @@ class McapWriter:
         self._chunk_msg_offsets: Dict[int, List[Tuple[int, int]]] = {}
         self._f = open(path, "wb")
         self._f.write(MAGIC)
-        self._write(OP_HEADER, self._str("ros2") + self._str("sonar3d-tpu"))
+        self._write(OP_HEADER, self._str("ros2") + self._str("sonar3d"))
         self._schema_ids: Dict[str, int] = {}
         self._channel_ids: Dict[str, int] = {}
         # summary-section bookkeeping

@@ -692,7 +692,7 @@ class SonarMapper:
 
     def query_probabilities(self, points) -> np.ndarray:
         """Batched point query: (N, 3) world coords -> (N,) occupancy
-        probabilities; never-updated voxels answer 0.5.  The TPU-shaped
+        probabilities; never-updated voxels answer 0.5.  The batched
         form of the reference's per-point SimpleOctree.get_probability
         (3d_mapper.py:122-126): one bucket row gather resolves every
         query."""

@@ -1,4 +1,4 @@
-"""Thin ROS2 node wrapping the TPU pipeline (optional; import-guarded).
+"""Thin ROS2 node wrapping the JAX pipeline (optional; import-guarded).
 
 Reproduces the reference node's runtime surface
 (scripts/3d_mapper_node.py:45-556): subscribes the sonar Image + Fast-LIO
@@ -89,7 +89,7 @@ _NODE_PARAM_DEFAULTS: Dict[str, Any] = {
     # reference node:105 (read :154, used per frame :338-339; prod config
     # enables it, config/3d_mapper.yaml:62)
     "show_opencv_visualization": False,
-    # EXTENSION beyond the reference's declared set: select the TPU map
+    # EXTENSION beyond the reference's declared set: select the device map
     # backend (hash | brick | brick-sharded | dense).  Default preserves
     # the reference-parity hash behavior.
     "map_backend": "hash",
@@ -97,7 +97,7 @@ _NODE_PARAM_DEFAULTS: Dict[str, Any] = {
 
 
 class SonarMapperNode(Node):  # pragma: no cover - needs a ROS2 environment
-    """ROS2 front-end; all mapping happens in the TPU SonarMapper."""
+    """ROS2 front-end; all mapping happens in the device SonarMapper."""
 
     def __init__(self) -> None:
         if not _ROS2:
@@ -166,7 +166,7 @@ class SonarMapperNode(Node):  # pragma: no cover - needs a ROS2 environment
         self.create_timer(1.0 / float(p("publish_rate_hz")), self.publish_map)
         self.get_logger().info(
             f"sonar_3d_mapper up: res={lib_config['voxel_resolution']} m, "
-            f"fov={lib_config['horizontal_fov']} deg (TPU backend)"
+            f"fov={lib_config['horizontal_fov']} deg (JAX backend)"
         )
 
     # -- ingest ---------------------------------------------------------

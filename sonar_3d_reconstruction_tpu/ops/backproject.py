@@ -2,7 +2,7 @@
 
 Re-expresses the reference's four nested data-dependent Python loops
 (scripts/3d_mapper.py:387-483, SURVEY.md section 3.2 hot loops 1-4) as one
-static-shape tensor program suitable for XLA/TPU:
+static-shape tensor program suitable for XLA:
 
   * first hit       -> argmax over a boolean intensity mask with no-hit sentinel
   * free sampling   -> static grid of ceil(R/step) candidate bins + validity mask
@@ -15,9 +15,8 @@ the host in float64 — exact truncation parity with the NumPy reference; a
 float32 device recompute can flip nv by one at truncation boundaries and move
 a whole fan.  The FREE path's fan trig is static (fixed bins) and baked in as
 constant tables; the OCCUPIED path's trig depends on the dynamic first-hit
-bin and is computed elementwise on device (cos/sin on the vector units —
-measured faster than gathering precomputed rows), using the gathered exact
-nv.  Beyond that the device performs only: intensity compare, first-hit
+bin and is computed elementwise on device (cos/sin instead of gathering
+precomputed rows), using the gathered exact nv.  Beyond that the device performs only: intensity compare, first-hit
 argmax, small gathers, three multiplies per point, and one batched SE(3)
 transform.
 
@@ -66,8 +65,7 @@ class FanTables:
     # which wastes (VF - (2nv+1)) lanes per short-range bin — each bin
     # contributes exactly its 2*nv(r)+1 fan lanes.  For the production
     # geometry this shrinks the free lattice ~43% (850 -> ~480 lanes/ray)
-    # and every downstream sort/scan with it (VERDICT r1 'flat free-fan
-    # lattice' backlog item).
+    # and every downstream sort/scan with it.
     free_idx: np.ndarray        # (L,) int32 absolute bin index per lane
     free_r: np.ndarray          # (L,) float range in meters per lane
     free_cos_v: np.ndarray      # (L,) fan vertical-angle cosines
@@ -432,17 +430,17 @@ def backproject_ping(
 
     # ---- occupied candidates: window bins first_hit + w (reference :449-459).
     # The per-bin fan trig depends on the DYNAMIC first-hit bin, so it is
-    # computed elementwise on device (measured: gathering precomputed trig
-    # rows dominated backprojection) — EXCEPT the truncated fan count nv
+    # computed elementwise on device instead of gathered from precomputed
+    # trig rows — EXCEPT the truncated fan count nv
     # (reference :463), which is gathered from a small float64-exact host
     # table so f32 rounding can never flip it across an integer boundary.
     w_off = jnp.arange(W, dtype=jnp.int32)
     occ_bin = jnp.minimum(first_hit[:, None] + w_off[None, :], R)  # (n_rays, W)
     # ONE (n_rays, W) gather serves both the intensity gate (strict >,
     # reference :452) and the exact fan count: the per-(ray, bin) value
-    # where(hit, occ_nv[bin], 0) is built elementwise (free — gathers cost
-    # ~10 ns/index, so merging the former separate bin_hit and nv gathers
-    # halves the per-window-bin indexed lanes), with 0 doubling as the
+    # where(hit, occ_nv[bin], 0) is built elementwise (merging separate
+    # bin_hit and nv gathers halves the per-window-bin indexed lanes, and
+    # gathers are paid per index), with 0 doubling as the
     # not-hit sentinel (table nv is always >= 2) and the R column as the
     # past-the-image sentinel.
     hit_nv_tab = jnp.where(

@@ -1,11 +1,9 @@
-"""Sort-based per-frame voxel dedup (the TPU-shaped replacement for the
+"""Sort-based per-frame voxel dedup (the accelerator-shaped replacement for the
 reference's per-frame accumulation dict, scripts/3d_mapper.py:523-551).
 
-TPU cost model (measured on v5e through XLA): random scatter/gather costs
-~8-10 ns PER INDEX — so any per-candidate table operation at N≈10^6 costs
-~10 ms, while sorts (~1.3 ms for 10^6 keys+payload), cumulative/associative
-scans and elementwise ops are 10-100x cheaper.  The frame update therefore
-dedups candidates FIRST, entirely with sort/scan/elementwise primitives, and
+Random scatter/gather is paid per index, while sorts, cumulative and
+associative scans and elementwise ops stream over memory.  The frame update
+therefore dedups candidates FIRST, entirely with sort/scan/elementwise primitives, and
 touches the hash table only with ~U << N unique records:
 
   1. sort candidates by packed voxel code (invalid -> EMPTY_HI, sorts last);
@@ -18,10 +16,8 @@ touches the hash table only with ~U << N unique records:
   3. compact the segment-end records to the front with a second sort on
      the one-bit is-end key, truncated to a static unique budget.
 
-The adjacent-difference step (round 3) replaced two ``lax.cummax``
-segment-rebase scans — measured 0.135 ms/ping EACH on the bench lattice
-(the round-3 op trace's reduce-window rows) — with two shifts and two
-subtracts on the already-compacted arrays, at identical compaction-sort
+The adjacent-difference step replaced two ``lax.cummax`` segment-rebase
+scans with two shifts and two subtracts on the already-compacted arrays, at identical compaction-sort
 payload width (csum+idx ride where count+occ rode).
 
 Per-voxel aggregates are EXACT: within a frame every candidate of a voxel
@@ -60,10 +56,9 @@ def running_max(x: jnp.ndarray) -> jnp.ndarray:
     """Inclusive running maximum — the segment rebase/rank primitive shared
     by dedup and the bucket-insert ranking.
 
-    ``lax.cummax`` lowers to a reduce-window (measured ~0.07 ms/ping for
-    the same-width cumsum in the round-3 op trace) while
-    ``associative_scan(maximum)`` materialized half-width slice/pad
-    intermediates at every level (~0.5 ms/ping across the dedup scans)."""
+    ``lax.cummax`` lowers to a reduce-window, while
+    ``associative_scan(maximum)`` materializes half-width slice/pad
+    intermediates at every level."""
     return jax.lax.cummax(x, axis=0)
 
 
@@ -85,8 +80,8 @@ def dedup_frame(
     (callers poison the frame and retry with a larger budget).
 
     ``lane_budget`` (default ``min(n, 2*unique_budget)``): the compaction
-    sort — the second-most expensive op in the records program (measured
-    1.65 ms vs 0.4 ms sliced, at N=819k on v5e) — runs on only the first
+    sort — one of the most expensive ops in the records program — runs on
+    only the first
     ``lane_budget`` lanes.  Sort 1 puts every valid candidate in a
     contiguous prefix, so this is exact whenever the frame's valid-candidate
     count fits the budget; a frame that exceeds it is reported through
@@ -104,7 +99,7 @@ def dedup_frame(
     lo = jnp.where(valid, lo, big)
 
     # is_stable=False: a stable sort carries an implicit iota tiebreak
-    # array through every merge stage (measured in the round-3 op trace);
+    # array through every merge stage;
     # per-voxel aggregation is order-independent, so equal-key order is
     # irrelevant here
     hi, lo, occ_i = jax.lax.sort(

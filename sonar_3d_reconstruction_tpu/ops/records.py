@@ -23,13 +23,11 @@ from sonar_3d_reconstruction_tpu.ops.backproject import (
     backproject_ping,
 )
 from sonar_3d_reconstruction_tpu.ops.dedup import (
-    CompactRecords,
     UniqueRecords,
     dedup_frame,
     dedup_frame_compact,
 )
 from sonar_3d_reconstruction_tpu.ops.packing import (
-    EMPTY32,
     pack_box_keys,
     pack_brick_keys,
     pack_keys,
@@ -57,21 +55,8 @@ def frame_records(
     brick_bits: int = 0,
     box_min=None,
     box_bits=None,
-    raw: bool = False,
 ) -> Tuple[UniqueRecords, FrameAux]:
     """One ping -> (UniqueRecords, FrameAux). Pure, state-independent.
-
-    ``raw=True`` (box path only, round 5): SKIP the per-frame sort-dedup
-    and emit every candidate as its own CompactRecords lane with payload
-    ``1<<16 | occ`` — legal ONLY for the Pallas binning window apply
-    (dense_mode "pallas...-raw"), whose VMEM accumulator SUMS records per
-    (voxel, frame) slot, reproducing the dedup aggregates exactly (counts
-    are small integers, exact in f32).  The XLA dense-scatter modes
-    require unique records and must not consume raw output.  Motivation:
-    with the dense scatter gone, the per-frame candidate + compaction
-    sorts (0.29 ms/ping at w16) were the records half's main cost — the
-    round-3 fused-window-dedup rejection priced exactly those against a
-    scatter that no longer exists.
 
     ``dedup_lane_budget`` (optional) is dedup_frame's compaction-slice
     width: it must cover the frame's VALID candidates, while
@@ -108,17 +93,7 @@ def frame_records(
     range_fail = jnp.any(valid & ~in_range)
     valid = valid & in_range
 
-    if raw:
-        assert box_min is not None, "raw records require the box-key path"
-        occ_u = cand["is_occupied"].astype(jnp.uint32)
-        rec = CompactRecords(
-            key=jnp.where(valid, bkey, EMPTY32),
-            payload=jnp.where(valid, jnp.uint32(1 << 16) | occ_u, 0),
-            valid=valid,
-            n_unique=jnp.sum(valid).astype(jnp.int32),  # <= U: no overflow
-            pack_fail=jnp.zeros((), bool),
-        )
-    elif box_min is not None:
+    if box_min is not None:
         rec = dedup_frame_compact(
             bkey, cand["is_occupied"], valid, unique_budget,
             lane_budget=dedup_lane_budget,

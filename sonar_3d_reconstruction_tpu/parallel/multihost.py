@@ -16,7 +16,7 @@ records (a few MB per frame) over DCN, and one host folds them in order with
 ``apply_record_segments``.  Results are bit-identical to single-host
 processing of the whole bag.
 
-This module is mesh-free (plain host-level parallelism); in-chip/ICI
+This module is mesh-free (plain host-level parallelism); device-mesh
 parallelism is parallel/shard.py.
 """
 
@@ -239,8 +239,8 @@ def map_ping_sequence_multihost(
     max_grow_retries: int = 12,
     backend: str = "hash",
 ) -> Tuple[HashGridState, List[dict]]:
-    """map_ping_sequence-grade host wrapper for the DCN decomposition
-    (VERDICT r2 #7): split the ping stream into ``n_hosts`` contiguous
+    """map_ping_sequence-grade host wrapper for the DCN decomposition:
+    split the ping stream into ``n_hosts`` contiguous
     segments, compute each segment's records independently (what each host
     would do with its bag slice), fold them in stream order, and on any
     overflow grow the RIGHT knob and replay from the first failed frame:

@@ -1,4 +1,4 @@
-"""Multi-chip spatial sharding of the hashed voxel map (shard_map over ICI).
+"""Multi-device spatial sharding of the hashed voxel map (shard_map).
 
 Design (SURVEY.md section 5.8; a design choice, not a port — the reference is
 a single Python process over DDS with zero parallelism):
@@ -10,8 +10,8 @@ a single Python process over DDS with zero parallelism):
     keys entirely locally.
   * Within-ping data parallelism: backprojection + key packing are ordinary
     jit regions — GSPMD partitions them over the same mesh; the packed
-    candidate stream is then all-gathered (XLA inserts the collective,
-    riding ICI) so each shard can filter the candidates it owns and run the
+    candidate stream is then all-gathered (XLA inserts the collective)
+    so each shard can filter the candidates it owns and run the
     sort-dedup + bucket-table update (ops/dedup.py + grid/hash.py) on its
     local block.
   * Per-frame update semantics are identical to the single-chip path:
@@ -21,7 +21,7 @@ a single Python process over DDS with zero parallelism):
     3d_mapper.py:112-115, :560) are computed over the full replicated
     candidate stream, so every shard carries the same global bounds.
   * Frame atomicity: if ANY shard overflows (unique budget or a bucket) the
-    frame is rejected on EVERY shard (one psum over ICI decides before any
+    frame is rejected on EVERY shard (one psum decides before any
     write lands), so the host can grow all sub-tables and replay exactly as
     single-chip.
 
@@ -262,7 +262,7 @@ def make_sharded_ping_step(
         cand = backproject_ping(image, T, tables, cfg, dtype=dtype)
         # within-ping data parallelism: GSPMD splits the candidate tensor
         # over the mesh; the shard_map boundary all-gathers the packed
-        # stream for ownership filtering (one all-gather per ping over ICI).
+        # stream for ownership filtering (one all-gather per ping).
         pts = jax.lax.with_sharding_constraint(
             cand["points"], NamedSharding(mesh, P(axis_name))
         )
@@ -386,7 +386,7 @@ def make_window_scan_sharded(
 
     Backprojection runs replicated inside the shard body (each shard
     re-derives the candidate stream rather than all-gathering an 80 MB
-    window of candidates over ICI; it is a small fraction of the step).
+    window of candidates; it is a small fraction of the step).
     """
     from sonar_3d_reconstruction_tpu.grid.hash import (
         apply_records_batched,

@@ -1,9 +1,9 @@
-"""Multi-chip spatial sharding of the BRICK map (shard_map over ICI).
+"""Multi-device spatial sharding of the BRICK map (shard_map).
 
 The brick backend (grid/brick.py — the fastest single-chip engine) sharded
 with the same ownership design as parallel/shard.py's voxel-hash engine
 (SURVEY.md section 5.8; the reference is a single Python process with zero
-parallelism, so this layer is a TPU-first design, not a port):
+parallelism, so this layer is a new design, not a port):
 
   * Mesh axis ``"space"``: the brick table splits into S independent
     sub-tables.  A voxel's owner shard is a hash of its BRICK code mod S —
@@ -12,7 +12,7 @@ parallelism, so this layer is a TPU-first design, not a port):
     sharded map is bit-identical to single-chip.
   * Each shard re-derives the replicated candidate stream (backprojection
     is a small fraction of the step — cheaper than all-gathering an ~80 MB
-    candidate window over ICI), filters the bricks it owns, and runs the
+    candidate window), filters the bricks it owns, and runs the
     standard sort-dedup + brick window apply on its local block.
   * Frame/window atomicity: any shard's overflow rejects the window on
     EVERY shard (``fail_reduce`` psum before any write), so the host grows
@@ -501,7 +501,7 @@ def rehash_sharded_bricks(
 def _grow_prog(mesh: Mesh, axis_name: str, new_local_capacity: int):
     """Cached jitted grow program (same convention as the window builders
     above): rebuilding jit(shard_map(...)) per growth event would retrace
-    — and on the remote TPU toolchain recompile — every time."""
+    — and recompile — every time."""
 
     def grow_block(blk):
         local = _local_brick(blk)

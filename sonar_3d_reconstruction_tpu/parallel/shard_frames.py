@@ -1,21 +1,20 @@
 """Frame-parallel sharded brick engine: records sharded over PINGS,
-exchanged to brick owners over an ICI all_to_all.
+exchanged to brick owners over an all_to_all.
 
 parallel/shard_brick.py replicates the records program (backprojection +
 full-lattice sort-dedup) on EVERY shard and parallelizes only the
-table/apply half — Amdahl-bound around ~2x no matter how many chips,
-because the records program is the larger half of the measured step
-(PERFORMANCE.md).  This engine shards BOTH halves:
+table/apply half — Amdahl-bound no matter how many devices whenever the
+records program is the larger half of the step.  This engine shards BOTH
+halves:
 
   * each shard computes records for its ~window/S of the window's frames
     (backprojection + owner-GROUPED dedup, ops/dedup.dedup_frame_grouped:
     records come out contiguous per owner shard at no extra sort arrays
     in the compaction);
   * per-(frame, owner) blocks peel off as bandwidth-cheap dynamic slices
-    (NOT per-record gathers — indexed-op cost is per index entry,
-    PERFORMANCE.md cost table) padded to a static ``xchg_budget``, and one
+    (NOT per-record gathers — indexed-op cost is per index entry) padded to a static ``xchg_budget``, and one
     ``lax.all_to_all`` over the mesh axis delivers every block to the
-    shard that owns its bricks: ~16 B/record over ICI;
+    shard that owns its bricks: ~16 B/record over the interconnect;
   * the standard per-shard brick window apply (grid/brick.py, unchanged)
     then runs on the shard's OWN records for ALL window frames — the
     same computation shard_brick.py performs, so results are
@@ -24,11 +23,9 @@ because the records program is the larger half of the measured step
     the window everywhere via the psum fail_reduce).
 
 Per-shard work: ~B/S frames of records + ~1/S of the apply — BOTH halves
-scale with the mesh, which is what the 1e9 updates/s BASELINE target
-needs (one v5e chip measures ~1e8; PERFORMANCE.md scaling section).
-The reference (a single-process Python loop,
-/root/reference/scripts/3d_mapper.py) has no counterpart; this layer is
-TPU-first design per SURVEY.md section 5.7/5.8.
+scale with the mesh.  The reference (a single-process Python loop,
+scripts/3d_mapper.py) has no counterpart; this layer follows SURVEY.md
+section 5.7/5.8.
 
 State layout, growth (rehash_sharded_bricks), host gather and
 checkpointing are shared with parallel/shard_brick.py — the two engines
@@ -106,7 +103,7 @@ def make_window_scan_sharded_frames(
     insert_budget=None,
     brick_bits: int = DEFAULT_BRICK_BITS,
     box_bits: Optional[Tuple[int, int, int]] = None,
-    dense_mode: str = "bfv",  # library default, round 5 — see pipeline.scan_pings_brick
+    dense_mode: str = "bfv",  # library default — see pipeline.scan_pings_brick
     vox_budget: Optional[int] = None,
 ):
     """Frame-parallel sharded window-engine sequence runner:
@@ -128,8 +125,8 @@ def make_window_scan_sharded_frames(
     exchange moves (key, payload) = 8 B/record instead of the wide
     four-array 16 B, and each owner runs the compact window apply
     (grid/brick.apply_brick_records_compact, incl. ``dense_mode`` /
-    ``vox_budget``) — the same sort-byte savings the single-chip engine
-    measured (PERFORMANCE.md).  The scan then takes per-window
+    ``vox_budget``) — the same sort-byte savings as the single-device
+    engine.  The scan then takes per-window
     ``box_mins`` as its fifth argument.  ``box_bits=None`` keeps the wide
     two-word path.
     """
@@ -471,7 +468,7 @@ def map_ping_sequence_sharded_frames(
     window_cap="auto",
     free_cap="auto",
     box_min_bits=None,
-    dense_mode: str = "bfv",  # library default, round 5 — see pipeline.scan_pings_brick
+    dense_mode: str = "bfv",  # library default — see pipeline.scan_pings_brick
     vox_budget: Optional[int] = None,
     use_boxes: bool = True,
 ) -> Tuple[ShardedBrickState, Dict[str, np.ndarray]]:

@@ -255,7 +255,7 @@ class StreamingMapper:
         self._chunk_stamps: List[float] = []
         self._chunk_arrivals: List[float] = []
         self._next_publish_t: Optional[float] = None
-        # incremental publish (VERDICT r4 item 4): host-side published view
+        # incremental publish: host-side published view
         # + pose-derived dirty regions (grid/brick.py incremental section).
         # None = auto (on for the single-chip brick backend).  The ticks
         # then pull O(changed-bricks) instead of O(occupied) — exact and
@@ -465,7 +465,7 @@ class StreamingMapper:
                 # double from the budget actually in effect (the snug
                 # geometry-derived default, NOT the global
                 # DEFAULT_UNIQUE_BUDGET — same over-allocation fix as
-                # map_ping_sequence / models.mapper, ADVICE r1)
+                # map_ping_sequence / models.mapper)
                 self._unique_budget = 2 * (
                     self._unique_budget
                     or effective_unique_budget(self._tables, self.cfg)

@@ -2,9 +2,7 @@
 
 The engines run fastest with NON-DEFAULT budgets sized to the sensor /
 environment: every apply-side indexed op, the window sort, and the dedup
-compaction slice scale with them (PERFORMANCE.md "snug budgets" rows — the
-difference between the default and tuned engine is ~2x end to end).  The
-bench has always tuned itself from a warmup run's measured stats;
+compaction slice scale with them.  The bench has always tuned itself from a warmup run's measured stats;
 this module makes the same machinery a user-facing feature:
 
     plan = tune_sequence(images, positions, quats, cfg)   # one warmup
@@ -13,11 +11,11 @@ this module makes the same machinery a user-facing feature:
     #     python -m sonar_3d_reconstruction_tpu map-bag BAG --budgets plan.json
 
 Budgets derive from emission counts, which are platform-independent and
-deterministic for given inputs, so a plan tuned on CPU is valid on TPU.
+deterministic for given inputs, so a plan tuned on CPU is valid on the GPU.
 A stale plan can only cost a growth replay (every overflow is detected and
 cause-attributed), never correctness.  Reference anchor: the reference has
 no analog — its dict store has no static shapes to size (SimpleOctree,
-scripts/3d_mapper.py:19-194); this is the TPU-shaped deployment knob.
+scripts/3d_mapper.py:19-194); this is the static-shape deployment knob.
 """
 
 from __future__ import annotations

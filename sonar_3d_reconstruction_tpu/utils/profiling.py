@@ -9,12 +9,14 @@ same stats-dict fields for drop-in comparability and adds:
     XLA-level traces viewable in TensorBoard/Perfetto;
   * ``timed`` — lightweight wall-clock section timer;
   * ``StatsAggregator`` — rolling per-ping stats with the reference's
-    every-N-frames reporting cadence.
+    every-N-frames reporting cadence;
+  * ``device_info`` — what every reported number names as its device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterator, List, Optional
@@ -31,6 +33,36 @@ def device_trace(log_dir: str) -> Iterator[None]:
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def gpu_name_and_power_limit() -> Optional[str]:
+    """``nvidia-smi``'s "name, power.limit" line for the first card, or None
+    where there is no ``nvidia-smi`` (a card may be capped below its
+    maximum power and then runs slower under load, so numbers carry it)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True,
+        ).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = out.strip().splitlines()
+    return lines[0].strip() if lines else None
+
+
+def device_info() -> Dict[str, object]:
+    """Platform, kind and count of the default JAX devices, plus the card's
+    name and power limit."""
+    import jax
+
+    devs = jax.devices()
+    return {
+        "platform": devs[0].platform,
+        "device_kind": devs[0].device_kind,
+        "device_count": len(devs),
+        "gpu": gpu_name_and_power_limit(),
+    }
 
 
 @contextlib.contextmanager

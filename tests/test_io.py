@@ -387,7 +387,7 @@ def test_mcap_roundtrip(tmp_path):
 @pytest.mark.parametrize("compression", ["zstd", "lz4"])
 def test_mcap_compressed_chunk_roundtrip(tmp_path, compression):
     """Compressed-chunk mcap files (rosbag2's default is zstd) roundtrip
-    through the native codecs (VERDICT r1 item 8)."""
+    through the native codecs."""
     from sonar_3d_reconstruction_tpu.io import native
     from sonar_3d_reconstruction_tpu.io.bag import IMAGE_TYPE, ODOMETRY_TYPE
     from sonar_3d_reconstruction_tpu.io.mcap import McapReader, McapWriter

@@ -1,4 +1,4 @@
-"""Long-horizon full-size float32 parity (VERDICT r1 item 6; SURVEY hard
+"""Long-horizon full-size float32 parity (SURVEY hard
 part 1; BASELINE acceptance bar).
 
 Round 1 proved the 1e-5 probability bar only over 8 pings of 100x64

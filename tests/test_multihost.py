@@ -66,7 +66,7 @@ def _inputs(cfg, n, seed):
 
 
 def test_multihost_wrapper_matches_one_shot(small_cfg):
-    """map_ping_sequence_multihost (VERDICT r2 #7) on a happy path: 3-host
+    """map_ping_sequence_multihost on a happy path: 3-host
     split at non-window boundaries, bit-identical to single-host."""
     from sonar_3d_reconstruction_tpu.parallel.multihost import (
         map_ping_sequence_multihost,

@@ -320,7 +320,7 @@ def test_sharded_window_engine_snug_budgets(small_cfg):
 
 
 def test_sharded_cold_warm_insert_schedule(small_cfg):
-    """VERDICT r2 #6: the sharded window engine accepts the per-window
+    """The sharded window engine accepts the per-window
     [cold, warm] insert-budget schedule the single-chip engine uses (two
     compiled variants), sized from the reported PER-SHARD maxima
     (batch_n_need_max), and bit-matches both the unbudgeted sharded run and

@@ -133,10 +133,7 @@ def test_sharded_frames_wide_and_row_modes_match(small_cfg):
     for k in got:
         assert got[k] == want[k], ("wide", k)
 
-    # "pallas": the fused binning kernel (pallas/bin_kernel.py) composes
-    # with the frame-parallel exchange — each owner shard runs the kernel
-    # on its local compacted bricks (interpret mode on the CPU mesh)
-    for mode in ("row", "bfv", "pallas"):
+    for mode in ("row", "bfv"):
         alt, _ = map_ping_sequence_sharded_frames(
             images, positions, quats, cfg, mesh=mesh, dtype=jnp.float64,
             window=4, local_capacity=1 << 10, dense_mode=mode,

@@ -55,10 +55,10 @@ def test_bag_replay_matches_direct_pipeline(tmp_path, small_cfg):
 
 def test_stream_fan_cap_and_latency(tmp_path, small_cfg):
     """Per-chunk host-gated fan cap: streaming adopts a capped candidate
-    lattice (VERDICT #4), grows it monotonically when a deeper return
+    lattice, grows it monotonically when a deeper return
     arrives (one recompile, counted), and still maps bit-identically to the
     offline auto-capped pipeline.  Per-frame arrival->committed latencies
-    are recorded with p50/p95 in the summary (VERDICT #3)."""
+    are recorded with p50/p95 in the summary."""
     cfg = small_cfg
     n = 6
     images = np.stack(
